@@ -1,4 +1,4 @@
-"""flo_tpu — a TPU-native reimplementation of the flo dual-mode audio codec.
+"""flo_tpu — a batch reimplementation of the flo dual-mode audio codec in JAX.
 
 Batch-first architecture: the unit of work is a batch of frames shaped
 [lanes, samples]; all codec math runs as jitted XLA/Pallas programs over the

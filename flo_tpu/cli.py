@@ -441,7 +441,10 @@ def cmd_serve(args) -> int:
 
 
 def main(argv=None) -> int:
+    from . import compile_cache
+
     args = build_parser().parse_args(argv)
+    compile_cache.configure()
     try:
         return args.fn(args)
     except FileNotFoundError as e:

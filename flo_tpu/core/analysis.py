@@ -11,7 +11,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from . import blake3
+from . import blake3, msgpack
 from .metadata import WaveformData
 
 
@@ -31,8 +31,6 @@ class SpectralFingerprint:
         """Wire form stored in metadata `spectrum_fingerprint`:
         rmp_serde::to_vec_named of the struct (lib.rs:255-258) — a msgpack
         named map with fixed-size u8 arrays as int lists."""
-        import msgpack
-
         return msgpack.packb(
             {
                 "hash": list(self.hash),
@@ -42,15 +40,12 @@ class SpectralFingerprint:
                 "frequency_peaks": list(self.frequency_peaks),
                 "energy_profile": list(self.energy_profile),
                 "avg_loudness": int(self.avg_loudness),
-            },
-            use_bin_type=True,
+            }
         )
 
     @classmethod
     def from_bytes(cls, data: bytes) -> "SpectralFingerprint":
-        import msgpack
-
-        d = msgpack.unpackb(bytes(data), raw=False)
+        d = msgpack.unpackb(data)
         return cls(
             hash=bytes(d.get("hash", b"\x00" * 32)),
             duration_ms=int(d.get("duration_ms", 0)),

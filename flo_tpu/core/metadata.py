@@ -15,7 +15,7 @@ import enum
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-import msgpack
+from . import msgpack
 
 
 class PictureType(str, enum.Enum):
@@ -690,11 +690,11 @@ class FloMetadata:
     def to_msgpack(self) -> bytes:
         """Serialize (rmp_serde::to_vec_named equivalent: named maps, f32
         floats, bin bytes)."""
-        return msgpack.packb(self.to_obj(), use_bin_type=True, use_single_float=True)
+        return msgpack.packb(self.to_obj())
 
     @classmethod
     def from_msgpack(cls, data: bytes) -> "FloMetadata":
-        obj = msgpack.unpackb(bytes(data), raw=False, strict_map_key=False)
+        obj = msgpack.unpackb(data)
         if not isinstance(obj, dict):
             raise ValueError("metadata is not a msgpack map")
         return cls.from_obj(obj)

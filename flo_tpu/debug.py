@@ -1,7 +1,7 @@
 """Debug / integrity mode (SURVEY.md §5.2 aux subsystem).
 
 The reference's only runtime integrity machinery is the CRC32 validate path
-plus clippy at build time; the TPU-native analog adds an opt-in debug mode
+plus clippy at build time; this build adds an opt-in debug mode
 that turns on JAX's numerical checks and makes every decode verify the DATA
 CRC before touching frames.
 """

@@ -2,7 +2,7 @@
 
 The reference ships a browser demo that hosts the WASM codec in a web
 worker (Demo/js/*, SURVEY.md §2.8). In this build the codec runs
-server-side on the TPU, so the demo is a static page driving the HTTP
+server-side on the accelerator, so the demo is a static page driving the HTTP
 endpoints instead of a WASM module — same user-visible feature set:
 encode an uploaded audio file (lossless level / lossy preset / target
 bitrate), inspect info + metadata + EBU R128 loudness, render the
@@ -39,7 +39,7 @@ PAGE = r"""<!doctype html>
 </style>
 </head>
 <body>
-<h1>flo™ codec demo <small>(TPU service build)</small></h1>
+<h1>flo™ codec demo <small>(service build)</small></h1>
 <p>Pick an audio file (WAV, AIFF, FLAC, Ogg Vorbis, MP3, or an existing
 .flo), choose a mode, and encode. Everything runs on the server via the
 <code>/v1</code> API this page is served from.</p>

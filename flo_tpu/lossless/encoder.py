@@ -1,6 +1,6 @@
 """Lossless encoder: batched best-of-N predictor search, device-first.
 
-Behavioral model: libflo/src/lossless/encoder.rs:32-302. Redesigned for TPU:
+Behavioral model: libflo/src/lossless/encoder.rs:32-302. Redesigned for batches:
 instead of the reference's per-channel serial loop that tries ~14 candidate
 encodings one at a time, every (frame, channel) lane evaluates *all*
 candidates in ONE jitted program (ops/select.py):
@@ -242,10 +242,7 @@ def encode_many_to_frames(
 
 #: Number of sub-batches a bulk encode is split into. With >1, chunk B's
 #: uploads/compute overlap chunk A's download + host assembly (jax dispatch
-#: is async; only the collect blocks). 2 beats 4 by ~25% on the overlapped
-#: headline pass (tools/chunks_ab.py, r3: 150.8 vs 121.0 au-s/s, consistent
-#: with the r2 A/B recorded in commit b07e80c; 4 only wins for SERIAL
-#: single-pipeline calls).
+#: is async; only the collect blocks). Not yet re-measured on the GPU.
 PIPELINE_CHUNKS = 2
 
 

@@ -1,16 +1,18 @@
 """Native (C++) host finalizers with lazy g++ build and ctypes binding.
 
-The TPU owns the array math; the container's serial bit/byte-level work is
-the host hot path, implemented in C++ with OpenMP over independent streams:
+The device owns the array math; the container's serial bit/byte-level work
+is the host hot path, implemented in C++ with OpenMP over independent streams:
 
 - rice.cpp     — Rice bitstream pack/unpack (rice.rs equivalent)
 - sparse.cpp   — lossy sparse RLE coefficient coder (encoder.rs:284-329)
 - encode.cpp   — lossless best-of-N candidate search (encoder.rs:173-217 +
-                 lpc.rs), the per-frame path for streaming encode where a
-                 device round trip per 1 s frame cannot amortize
+                 lpc.rs), the per-frame path for streaming encode
 - analysis.cpp — BLAKE3 (parallel tree), K-weighting biquads, true-peak FIR
                  (analysis.rs / ebu_r128.rs hot loops, for bulk auto-embed)
 
+Libraries are built from these sources at first use into ``_build/``, under
+a name keyed by a hash of the source, the compiler flags and the host CPU's
+model and feature flags, so a library built for another CPU is never loaded.
 Falls back to the vectorized numpy implementations when no toolchain is
 available, so importing never requires g++.
 """
@@ -18,13 +20,17 @@ available, so importing never requires g++.
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
 import pathlib
+import platform
 import subprocess
 import threading
 
 import numpy as np
 
 _DIR = pathlib.Path(__file__).resolve().parent
+_BUILD_DIR = _DIR / "_build"
 _lock = threading.Lock()
 _libs: dict = {}
 
@@ -163,40 +169,79 @@ _LINK_FLAGS = {
 }
 
 
-def _build(src: pathlib.Path, out: pathlib.Path, link: list | None = None) -> bool:
-    link = link or []
-    cmds = [
-        ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC", str(src), "-o", str(out)] + link,
-        ["g++", "-O3", "-shared", "-fPIC", str(src), "-o", str(out)] + link,
-        ["cc", "-O2", "-shared", "-fPIC", "-x", "c++", str(src), "-lstdc++", "-o", str(out)] + link,
-    ]
-    for cmd in cmds:
-        try:
-            res = subprocess.run(cmd, capture_output=True, timeout=120)
-            if res.returncode == 0 and out.exists():
-                return True
-        except (OSError, subprocess.SubprocessError):
-            continue
-    return False
+#: Compiler invocations, best first, as (flags before the source, libraries
+#: after it); each gets its own cache key.
+_COMPILERS = (
+    (("g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"), ()),
+    (("g++", "-O3", "-shared", "-fPIC"), ()),
+    (("cc", "-O2", "-shared", "-fPIC", "-x", "c++"), ("-lstdc++",)),
+)
+
+
+def _host_id() -> str:
+    """The host CPU's model and feature flags: what -march=native compiles for."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = f.read().split("\n\n", 1)[0].splitlines()
+        keep = [ln for ln in lines if ln.split(":")[0].strip() in
+                ("vendor_id", "cpu family", "model", "model name", "flags", "Features")]
+        return "\n".join(keep)
+    except OSError:
+        return f"{platform.machine()} {platform.processor()}"
+
+
+def _so_path(src: pathlib.Path, cmd: tuple, link: tuple) -> pathlib.Path:
+    key = hashlib.sha256()
+    for part in (src.read_bytes(), repr((cmd, link)).encode(), _host_id().encode()):
+        key.update(part)
+        key.update(b"\0")
+    return _BUILD_DIR / f"_lib{src.stem}-{key.hexdigest()[:16]}.so"
+
+
+def _build(src: pathlib.Path, cmd: tuple, link: tuple, out: pathlib.Path) -> bool:
+    """Compile into a private temporary name, then rename: concurrent
+    processes never load a half-written library."""
+    _BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        res = subprocess.run(
+            [*cmd, str(src), "-o", str(tmp), *link], capture_output=True, timeout=120
+        )
+        if res.returncode != 0 or not tmp.exists():
+            return False
+        os.replace(tmp, out)
+        return True
+    except (OSError, subprocess.SubprocessError):
+        return False
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def _library_path(name: str) -> pathlib.Path | None:
+    """Path of a library built from the committed source for this host,
+    building it on first use; None when no compiler succeeds."""
+    src = _DIR / f"{name}.cpp"
+    for cmd, libs in _COMPILERS:
+        link = (*libs, *_LINK_FLAGS.get(name, ()))
+        so = _so_path(src, cmd, link)
+        if so.exists() or _build(src, cmd, link, so):
+            return so
+    return None
 
 
 def _load(name: str):
     with _lock:
         if name in _libs:
             return _libs[name]
-        src = _DIR / f"{name}.cpp"
-        so = _DIR / f"_lib{name}.so"
         lib = None
         try:
-            if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
-                if not _build(src, so, _LINK_FLAGS.get(name)):
-                    _libs[name] = None
-                    return None
-            lib = ctypes.CDLL(str(so))
-            for fn, argtypes in _SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                if fn in _RESTYPES:
-                    getattr(lib, fn).restype = _RESTYPES[fn]
+            so = _library_path(name)
+            if so is not None:
+                lib = ctypes.CDLL(str(so))
+                for fn, argtypes in _SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    if fn in _RESTYPES:
+                        getattr(lib, fn).restype = _RESTYPES[fn]
         except OSError:
             lib = None
         _libs[name] = lib

@@ -1,6 +1,6 @@
 // Native Rice bitstream finalizer.
 //
-// The TPU produces residual tensors + exact Rice parameters; the serial
+// The device produces residual tensors + exact Rice parameters; the serial
 // bit-level pack/unpack is the host-side hot path (the native equivalent of
 // the reference's rice.rs:94-159 bit loops). Streams are independent, so
 // both directions parallelize over streams with OpenMP.

@@ -28,8 +28,8 @@ def compact_nonzeros(q):
     entries[:row_nnz.sum()] holds the nonzeros in row-major order; the tail
     is zero. Download only the prefix (fetch_prefix).
 
-    Reference implementation (one per-element scatter — ~10 ns/element on
-    TPU, so ~100 ms at bulk geometry); production uses the two-phase
+    Reference implementation (one per-element scatter); production uses the
+    two-phase
     compact_blocks/assemble_entries pair below. Kept as the test oracle and
     for small one-shot calls."""
     R, W = q.shape

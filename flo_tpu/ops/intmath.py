@@ -1,9 +1,9 @@
-"""Exact wide-integer helpers for TPU (int32-only).
+"""Exact wide-integer helpers in int32 only.
 
 The reference codec does its LPC math with i64 multiply-accumulate followed by
-an arithmetic right shift (lpc.rs:288-294, lossless/decoder.rs:169-179). TPUs
-have no native 64-bit integer multiply, so these helpers compute the identical
-result using 15-bit limb decomposition in int32:
+an arithmetic right shift (lpc.rs:288-294, lossless/decoder.rs:169-179). JAX
+runs with 32-bit integers unless x64 mode is on, so these helpers compute the
+identical result using 15-bit limb decomposition in int32:
 
     c = c1*2^15 + c0,  s = s1*2^15 + s0   (c0, s0 in [0, 2^15))
 
@@ -21,7 +21,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 # Plain int (not jnp.int32): a module-level jnp constant would initialize a
-# JAX backend at import time (slow TPU handshake just to import flo_tpu).
+# JAX backend at import time.
 _MASK15 = 0x7FFF
 
 
@@ -144,6 +144,50 @@ def predict_shift_taps(samples, coeffs, shifts):
     L3 = L3 + (L2 >> 15)
     L2 = L2 & _MASK15
     return limb_shift_right_i32(L3, L2, L1, L0, shifts)
+
+
+#: Terms per int32 partial sum in :func:`dot_f32`: 9-bit limb products stay
+#: within 2^17, so a chunk's sum stays within 2^29.
+_DOT_CHUNK = 4096
+
+
+def _balanced(x, bits: int):
+    """(hi, lo) with x = hi * 2^bits + lo and lo in [-2^(bits-1), 2^(bits-1))."""
+    half = 1 << (bits - 1)
+    lo = ((x + half) & ((1 << bits) - 1)) - half
+    return (x - lo) >> bits, lo
+
+
+def dot_f32(a, b):
+    """``Σ a*b`` over the last axis as float32, for int32 ``|a|, |b| <= 2^17``
+    and at most 2^21 terms.
+
+    The products and their sums are exact in int32 limbs; only the last five
+    additions round, in a fixed order, so the result depends on the values
+    alone. A float32 ``jnp.sum`` does not: its rounding follows the reduction
+    order XLA picks for the array's shape, which on a GPU differs between a
+    batch and each of its shards. The limbs are balanced (signed low digits),
+    so they carry no bias that the last additions would have to cancel.
+    """
+    a = a.astype(jnp.int32)
+    b = b.astype(jnp.int32)
+    S = a.shape[-1]
+    n = -(-S // _DOT_CHUNK)
+    pad = [(0, 0)] * (a.ndim - 1) + [(0, n * _DOT_CHUNK - S)]
+    shape = a.shape[:-1] + (n, _DOT_CHUNK)
+    a1, a0 = _balanced(jnp.pad(a, pad).reshape(shape), 9)
+    b1, b0 = _balanced(jnp.pad(b, pad).reshape(shape), 9)
+    out = None
+    # a*b = a1*b1*2^18 + (a1*b0 + a0*b1)*2^9 + a0*b0, each term within 2^17.
+    for term, scale in ((a0 * b0, 0), (a1 * b0 + a0 * b1, 9), (a1 * b1, 18)):
+        hi, lo = _balanced(jnp.sum(term, axis=-1), 15)  # per chunk, within 2^29
+        hi = jnp.sum(hi, axis=-1).astype(jnp.float32)  # within 2^24: exact
+        lo = jnp.sum(lo, axis=-1).astype(jnp.float32)
+        # Scaling by a power of two is exact, so a fused multiply-add
+        # rounds these the same as a multiply and an add.
+        val = lo * 2.0**scale + hi * 2.0 ** (scale + 15)
+        out = val if out is None else out + val
+    return out
 
 
 def div2_trunc(x):

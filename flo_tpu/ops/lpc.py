@@ -1,6 +1,6 @@
 """LPC kernels: batched reconstruction scan and residual computation.
 
-TPU-first design: the unit of work is a batch of *lanes* (one lane = one
+Batch-first design: the unit of work is a batch of *lanes* (one lane = one
 frame-channel). Throughput comes from lane parallelism — the reconstruction
 recurrence is sequential in time but fully vectorized across lanes, while the
 encoder's residual computation has no sequential dependence at all and runs as
@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .intmath import predict_shift
+from .intmath import dot_f32, predict_shift
 
 MAX_ORDER = 12
 
@@ -78,17 +78,30 @@ def reconstruct(residuals, coeffs, shifts, orders, is_fixed, unroll: int = 8):
     return out.T
 
 
-def reconstruct_best(residuals, coeffs, shifts, orders, is_fixed):
-    """Backend-best reconstruction: the Pallas kernel on TPU (2.45x the
-    lax.scan, measured bit-identical — ops/pallas_lpc.py), the scan
-    elsewhere. Traced-time choice; call inside jit."""
-    import jax as _jax
+def reconstruct_best(residuals, coeffs, shifts, orders, is_fixed, mesh=None):
+    """Reconstruction on whatever platform the enclosing jit is lowered for:
+    the Triton kernel (ops/triton_lpc.py) on CUDA, the scan elsewhere.
 
-    if _jax.default_backend() == "tpu":
-        from .pallas_lpc import reconstruct_pallas
+    ``mesh``: the 1-D 'batch' mesh the lane axis is sharded over, if any.
+    Lanes are independent, so each device reconstructs its own shard (the
+    kernel is opaque to XLA's partitioner, which would otherwise gather
+    every lane onto every device).
+    """
+    from .triton_lpc import reconstruct_triton
 
-        return reconstruct_pallas(residuals, coeffs, shifts, orders, is_fixed)
-    return reconstruct(residuals, coeffs, shifts, orders, is_fixed)
+    def run(*args):
+        return jax.lax.platform_dependent(
+            *args, cuda=reconstruct_triton, default=reconstruct
+        )
+
+    args = (residuals, coeffs, shifts, orders, is_fixed)
+    if mesh is None:
+        return run(*args)
+    from jax.sharding import PartitionSpec as P
+
+    return jax.shard_map(
+        run, mesh=mesh, in_specs=P("batch"), out_specs=P("batch"), check_vma=False
+    )(*args)
 
 
 def reconstruct_host(residuals, coeffs, shifts, orders, is_fixed) -> np.ndarray:
@@ -125,20 +138,22 @@ def reconstruct_host(residuals, coeffs, shifts, orders, is_fixed) -> np.ndarray:
 
 
 def autocorrelation_device(lanes, nvalid, max_order: int):
-    """On-device autocorrelation lags 0..max_order in float32.
+    """On-device autocorrelation lags 0..max_order, as float32.
 
-    The cast i32->f32 is exact for the codec's sample domain (|s| < 2^17);
-    the f32 dot products are approximate, which only affects which
-    coefficients the Levinson recursion *proposes* — round-trip exactness
-    never depends on them because coefficients are stored in the stream.
+    Each lag is summed exactly in int32 limbs (intmath.dot_f32, domain
+    |s| <= 2^17) and rounded once to float32, so a lane's result does not
+    depend on the batch or shard it is computed in, and the proposed
+    coefficients, hence the stream's bytes, do not either. Round-trip
+    exactness never depends on them: coefficients are stored in the stream.
     lanes [L, S] i32, nvalid [L] -> [L, max_order+1] f32.
     """
     L, S = lanes.shape
     mask = jnp.arange(S, dtype=jnp.int32)[None, :] < nvalid[:, None]
-    x = jnp.where(mask, lanes, 0).astype(jnp.float32)
-    cols = [jnp.sum(x * x, axis=1)]
-    for lag in range(1, max_order + 1):
-        cols.append(jnp.sum(x[:, lag:] * x[:, : S - lag], axis=1))
+    x = jnp.where(mask, lanes, 0)
+    cols = [
+        dot_f32(x, jnp.pad(x, ((0, 0), (lag, 0)))[:, :S])
+        for lag in range(max_order + 1)
+    ]
     return jnp.stack(cols, axis=1)
 
 
@@ -160,9 +175,12 @@ def levinson_device(ac, max_order: int):
         gather = jnp.take_along_axis(
             ac, jnp.clip(i - j_idx, 0, ac.shape[1] - 1)[None, :].repeat(L, 0), axis=1
         )
-        lam = ac[:, i + 1] - jnp.sum(
-            jnp.where(j_idx[None, :] < i, coeffs * gather, 0.0), axis=1
-        )
+        # Subtracted term by term in a fixed order, not by a reduction whose
+        # order the compiler picks per shape.
+        terms = jnp.where(j_idx[None, :] < i, coeffs * gather, 0.0)
+        lam = ac[:, i + 1]
+        for j in range(MAX_ORDER):
+            lam = lam - terms[:, j]
         dead = jnp.abs(error) < 1e-10
         alive = alive & ~dead
         gamma = jnp.where(alive, lam / jnp.where(error == 0, 1.0, error), 0.0)

@@ -33,6 +33,12 @@ MASKING_OFFSET_DB = -6.0
 TEMPORAL_DECAY = 0.7
 HEADROOM_DB = 10.0
 
+#: Agreement of :func:`smr` (float32) with :func:`smr_host` (float64), in dB.
+#: float32 band sums of at most 1024 terms carry a relative error below
+#: 1024 * 2^-24 = 6e-5, i.e. 2.6e-4 dB; TF32 rounds each term to 2^-11 =
+#: 4.9e-4, i.e. up to 2.1e-3 dB, and fails it.
+SMR_TOL_DB = 5e-4
+
 
 def ath_db(freq: np.ndarray) -> np.ndarray:
     """Terhardt ATH in dB, clamped [-10, 96] (psychoacoustic.rs:90-104).
@@ -111,7 +117,12 @@ def smr(coeffs, sample_rate: int, fft_size: int):
     ath, band, onehot, inv_count, spread = model_tables(sample_rate, fft_size)
 
     energy = coeffs * coeffs
-    band_energy = energy @ onehot  # [..., T, 25]
+    # HIGHEST: a GPU would otherwise run this float32 product in TF32 (about
+    # three decimal digits), which moves the SMR gating decisions
+    # (tools/determinism_probe.py plants TF32 here as a control).
+    band_energy = jnp.matmul(
+        energy, onehot, precision=jax.lax.Precision.HIGHEST
+    )  # [..., T, 25]
     band_mean = band_energy * inv_count
     band_db = jnp.where(
         (inv_count > 0) & (band_energy > 1e-10),
@@ -138,4 +149,29 @@ def smr(coeffs, sample_rate: int, fft_size: int):
     signal_db = jnp.where(
         mag > 1e-10, 20.0 * jnp.log10(jnp.maximum(mag, 1e-30)), -100.0
     )
+    return signal_db - per_bin_thr
+
+
+def smr_host(coeffs, sample_rate: int, fft_size: int) -> np.ndarray:
+    """float64 numpy form of :func:`smr`: the reference against which the
+    device's float32 result is held (same tables, same order of steps)."""
+    ath, band, onehot, inv_count, spread = model_tables(sample_rate, fft_size)
+    c = np.asarray(coeffs, np.float64)
+    band_energy = (c * c) @ onehot.astype(np.float64)
+    inv_count = inv_count.astype(np.float64)
+    with np.errstate(divide="ignore"):
+        band_db = np.where(
+            (inv_count > 0) & (band_energy > 1e-10),
+            10.0 * np.log10(np.maximum(band_energy * inv_count, 1e-30)),
+            -100.0,
+        )
+        masking = np.max(band_db[..., :, None] + spread, axis=-2) + MASKING_OFFSET_DB
+    thr = np.empty_like(masking)
+    prev = np.zeros_like(masking[..., 0, :])
+    for t in range(masking.shape[-2]):
+        prev = np.maximum(masking[..., t, :], prev * TEMPORAL_DECAY)
+        thr[..., t, :] = prev
+    per_bin_thr = np.maximum(thr[..., band], ath) - HEADROOM_DB
+    mag = np.abs(c)
+    signal_db = np.where(mag > 1e-10, 20.0 * np.log10(np.maximum(mag, 1e-30)), -100.0)
     return signal_db - per_bin_thr

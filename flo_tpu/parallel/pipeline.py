@@ -20,7 +20,8 @@ side inputs are replicated), so the SAME jitted programs run GSPMD-partitioned
 over all chips. Per-lane work partitions with zero collectives; only the
 entropy-packed wire buffers' global offset scans cross shard boundaries.
 Outputs are byte-identical to the unsharded path (tests/test_parallel.py;
-exercised end-to-end by __graft_entry__.dryrun_multichip).
+exercised end to end by __graft_entry__.dryrun_multichip and by
+``python chip_smoke.py --four`` on four GPUs).
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ def mesh_size(mesh: Mesh | None) -> int:
 #: Shape-bucket mode stack (see use_shape_buckets). Opt-in because the
 #: padding costs up to +33% device compute on a one-shot batch; it pays for
 #: itself whenever batch geometry varies call-to-call (serving), since every
-#: remote-compiled TPU program costs minutes on a cache miss.
+#: new shape compiles its programs anew.
 _SHAPE_BUCKETS: list[bool] = [os.environ.get("FLO_SHAPE_BUCKETS", "0") not in ("", "0")]
 
 

@@ -1,8 +1,8 @@
 """HTTP serving surface: the deployment analog of the reference's WASM/JS API.
 
 The reference ships its codec to browsers as wasm-bindgen exports
-(libflo/src/lib.rs:544-812, reflo/src/wasm.rs, Docs/javascript-api.md). A
-TPU-native build is a server-side system, so the equivalent surface is a
+(libflo/src/lib.rs:544-812, reflo/src/wasm.rs, Docs/javascript-api.md). An
+accelerator build is a server-side system, so the equivalent surface is a
 small HTTP service exposing the same function set over JSON/binary — every
 Core/Metadata function of Docs/javascript-api.md has an endpoint, and the
 CLI grows a `flo serve` subcommand to run it.
@@ -63,8 +63,8 @@ arrive, pull frames):
                                         metadata -> complete flo; ends session
   POST /v1/stream/<id>/close            drop the session
 
-Codec calls are serialized behind one lock (a remote-attached accelerator
-link is single-client); the HTTP layer itself is stdlib ThreadingHTTPServer,
+Codec calls are serialized behind one lock (one device, one codec call at a
+time); the HTTP layer itself is stdlib ThreadingHTTPServer,
 so health probes and small requests never queue behind a bulk encode.
 """
 
@@ -642,6 +642,9 @@ class _Handler(BaseHTTPRequestHandler):
 def make_server(host: str = "127.0.0.1", port: int = 0) -> ThreadingHTTPServer:
     """Build (without starting) the HTTP server; .server_address has the
     bound port when port=0."""
+    from . import compile_cache
+
+    compile_cache.configure()
     return ThreadingHTTPServer((host, port), _Handler)
 
 

@@ -10,7 +10,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
-from flo_tpu.ops.intmath import div2_trunc, predict_shift
+from flo_tpu.ops.intmath import div2_trunc, dot_f32, predict_shift
 
 
 def _ground_truth(c, s, shift):
@@ -61,3 +61,38 @@ def test_div2_trunc():
     got = np.asarray(div2_trunc(jnp.asarray(x)))
     want = np.array([2, -2, 2, -2, 0, 0, 0, 2**29, -(2**29)], dtype=np.int32)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 4096, 44100, 96000])
+def test_dot_f32_extreme_domain(S):
+    """Full-scale mid/side samples (|x| = 2^17) over frames up to 96 kHz: the
+    int32 partial sums never wrap, so the result is the int64 sum to within
+    the few float32 roundings of its assembly."""
+    rng = np.random.default_rng(S)
+    a = rng.choice([-(2**17), 2**17 - 1, 2**17], size=(3, S)).astype(np.int32)
+    b = np.stack([a[0], -a[1], rng.integers(-(2**17), 2**17 + 1, S)]).astype(np.int32)
+    prod = a.astype(np.int64) * b.astype(np.int64)
+    got = np.asarray(dot_f32(jnp.asarray(a), jnp.asarray(b))).astype(np.float64)
+    err = np.abs(got - prod.sum(axis=-1))
+    assert (err <= 2.0**-21 * np.abs(prod).sum(axis=-1)).all(), err
+
+
+def test_dot_f32_exact_below_2_24():
+    """Sums that fit a float32 mantissa come out exact."""
+    rng = np.random.default_rng(7)
+    a = rng.integers(-40, 40, size=(16, 5000)).astype(np.int32)
+    b = rng.integers(-40, 40, size=(16, 5000)).astype(np.int32)
+    want = (a.astype(np.int64) * b).sum(axis=-1)
+    assert np.abs(want).max() < 2**24
+    np.testing.assert_array_equal(np.asarray(dot_f32(jnp.asarray(a), jnp.asarray(b))), want)
+
+
+def test_dot_f32_rows_do_not_depend_on_batch():
+    """A row's result is the same whether it is reduced alone, in a slice,
+    or in the whole batch."""
+    rng = np.random.default_rng(8)
+    a = rng.integers(-(2**16), 2**16, size=(12, 9000)).astype(np.int32)
+    whole = np.asarray(dot_f32(jnp.asarray(a), jnp.asarray(a)))
+    for lo, hi in ((0, 1), (3, 6), (4, 12)):
+        part = np.asarray(dot_f32(jnp.asarray(a[lo:hi]), jnp.asarray(a[lo:hi])))
+        np.testing.assert_array_equal(part, whole[lo:hi])

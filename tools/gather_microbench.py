@@ -22,28 +22,20 @@ import numpy as np
 
 
 def _setup_cache():
-    import jax
+    from flo_tpu import compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        str(pathlib.Path(__file__).resolve().parent.parent / ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
-
-def _force(x):
-    import jax
-
-    return np.asarray(jax.tree_util.tree_leaves(x)[0].ravel()[:1])
+    compile_cache.configure()
 
 
 def _time(fn, reps=20):
-    _force(fn())
+    import jax
+
+    jax.block_until_ready(fn())
     outs = []
     t0 = time.time()
     for _ in range(reps):
         outs.append(fn())
-    _force(outs[-1])
+    jax.block_until_ready(outs)
     return (time.time() - t0) / reps
 
 

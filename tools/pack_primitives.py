@@ -34,11 +34,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        str(pathlib.Path(__file__).resolve().parents[1] / ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from flo_tpu import compile_cache
+
+    compile_cache.configure()
     dev = jax.devices()[0]
     print(f"device: {dev}  NCODES={NCODES}  NW={NW}  NB={NB}", flush=True)
 
@@ -52,16 +50,13 @@ def main():
     d_starts = jax.device_put(starts, dev)
     d_vals = jax.device_put(vals, dev)
 
-    def _force(out):
-        return np.asarray(jax.tree_util.tree_leaves(out)[0].ravel()[:1])
-
     def timeit(name, fn, reps=5):
         t0 = time.time()
-        _force(fn())
+        jax.block_until_ready(fn())
         print(f"{name:12s} compile+run {time.time()-t0:7.1f} s", flush=True)
         t0 = time.time()
         for _ in range(reps):
-            _force(fn())
+            jax.block_until_ready(fn())
         dt = (time.time() - t0) / reps
         print(f"{name:12s} hot {dt*1e3:8.1f} ms", flush=True)
         return dt

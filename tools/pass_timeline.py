@@ -8,7 +8,7 @@ boundaries of the four pipelines, then prints a sorted event log. The gaps
 between wire events are host compute or device waits; this is the tool that
 says WHICH.
 
-Run on the TPU host with a warm compile cache (after bench.py).
+Run on the GPU host with a warm compile cache (after bench.py).
 """
 
 import pathlib
@@ -68,23 +68,19 @@ def install():
 def main():
     import jax
 
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            str(pathlib.Path(__file__).resolve().parents[1] / ".jax_cache"),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from flo_tpu import compile_cache
 
-    from bench import corpus_like_clips, RATE, CHANNELS
+    compile_cache.configure()
+
+    from bench import RATE, CHANNELS, SEED
+    from flo_tpu import corpus
     from flo_tpu.container import reader as _reader
     from flo_tpu.lossless import decoder as lld, encoder as lle
     from flo_tpu.lossy import decoder as lod, encoder as loe
     from flo_tpu.lossy.presets import QUALITY_U8_TO_F32
 
     print("device:", jax.devices()[0], flush=True)
-    clips = corpus_like_clips(8, 60)
+    clips = corpus.material(8, 60, SEED)
     q = QUALITY_U8_TO_F32[1]
 
     def pass_once():

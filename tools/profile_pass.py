@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Stage-level wall-time profile of one bench pass on the real TPU.
+"""Stage-level wall-time profile of one bench pass on the accelerator.
 
 Times, for each of the four bulk pipelines separately (no overlap, so each
 stage's cost is visible): host marshal+dispatch, device wait (block until
@@ -19,32 +19,25 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
 
-from bench import make_audio, WORKLOAD_SECONDS, BATCH_FILES, RATE, CHANNELS
+from bench import SEED, WORKLOAD_SECONDS, BATCH_FILES, RATE, CHANNELS
 
 
 def main():
     import jax
 
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            str(pathlib.Path(__file__).parent.parent / ".jax_cache"),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from flo_tpu import compile_cache
+
+    compile_cache.configure()
 
     from flo_tpu.container import reader as _reader
     from flo_tpu.lossless import decoder as lld, encoder as lle
     from flo_tpu.lossy import decoder as lod, encoder as loe
     from flo_tpu.lossy.presets import QUALITY_U8_TO_F32
 
-    from bench import corpus_like_clips
+    from flo_tpu import corpus
 
     print("platform:", jax.devices()[0].platform, flush=True)
-    clips = corpus_like_clips(BATCH_FILES, WORKLOAD_SECONDS)
-    if clips is None:
-        clips = [make_audio(WORKLOAD_SECONDS, RATE, seed=42 + i) for i in range(BATCH_FILES)]
+    clips = corpus.material(BATCH_FILES, WORKLOAD_SECONDS, SEED)
     q = QUALITY_U8_TO_F32[1]
 
     def timed(label, fn):

@@ -1,16 +1,19 @@
 #!/usr/bin/env python
-"""Kernel-only microbench for the Pallas LPC reconstruction scan.
+"""Kernel-only microbench for the LPC reconstruction (ops/lpc.reconstruct_best).
 
-Reproduces the docs/tpu-architecture.md "reconstruction recurrence" number:
-[960, 44100] int32 lanes (= 8 minutes of 44.1 kHz stereo audio, 480
-audio-seconds), device-resident input and output, steady state. This is the
-KERNEL-ONLY figure — no wire unpack/pack around it; the driver's
-`device_reconstruct` bench config (bench.py) wraps the same kernel with
-device-resident I/O at the production batch geometry and reads lower.
+[240, 44100], [480, 44100] and [960, 44100] int32 lanes (960 lanes = 8
+minutes of 44.1 kHz stereo audio; a bulk decode of it dispatches two
+sub-batches of 480), device-resident input and output, steady state, for
+each lanes-per-program setting of the Triton kernel (BLOCK_LANES). Every
+setting is checked bit-exact against the first. This is the KERNEL-ONLY
+figure — no wire unpack/pack around it; the `device_reconstruct` bench
+config (bench.py) wraps the same kernel with device-resident I/O.
 
-Run on the TPU host:  python tools/reconstruct_microbench.py
+Run on the GPU host:  python tools/reconstruct_microbench.py [--block-lanes 32,64,128]
 """
 
+import argparse
+import json
 import pathlib
 import sys
 import time
@@ -19,49 +22,50 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
 
+S = 44100
 
-def main():
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--block-lanes", default="32")
+    ap.add_argument("--lanes", default="240,480,960")
+    args = ap.parse_args(argv)
+
     import jax
 
+    from flo_tpu import compile_cache, corpus
+
+    compile_cache.configure()
     dev = jax.devices()[0]
     print("device:", dev, flush=True)
 
-    from flo_tpu.ops import lpc
+    from flo_tpu.ops import lpc, triton_lpc
 
-    recon = jax.jit(lpc.reconstruct_best)
-    rng = np.random.default_rng(1)
-    for L in (240, 960):
-        S = 44100
-        audio_secs = L * S / 44100 / 2  # lanes are channels: stereo halves it
-        lanes = rng.integers(-30000, 30000, (L, S)).astype(np.int32)
-        coeffs = np.zeros((L, 12), np.int32)
-        coeffs[:, :4] = rng.integers(-(1 << 12), 1 << 12, (L, 4)).astype(np.int32)
-        shifts = jax.device_put(np.full(L, 12, np.int32), dev)
-        orders = jax.device_put(np.full(L, 4, np.int32), dev)
-        fixed = jax.device_put(np.zeros(L, bool), dev)
-        d_lanes = jax.device_put(lanes, dev)
-        d_coeffs = jax.device_put(coeffs, dev)
-
-        t0 = time.time()
-        r = recon(d_lanes, d_coeffs, shifts, orders, fixed)
-        jax.block_until_ready(r)
-        _ = np.asarray(r[:2, :8])  # device->host read: hard sync point
-        print(f"compile+run [{L},{S}]: {time.time() - t0:.1f}s", flush=True)
-
-        times = []
-        for _ in range(5):
-            t0 = time.time()
-            r = recon(d_lanes, d_coeffs, shifts, orders, fixed)
-            jax.block_until_ready(r)
-            _ = np.asarray(r[:2, :8])
-            times.append(time.time() - t0)
-        best = min(times)
-        print(
-            f"hot [{L},{S}]: {best * 1e3:.1f} ms  -> "
-            f"{audio_secs / best:,.0f}x realtime (kernel-only, {audio_secs:.0f} "
-            f"stereo audio-sec/iter)",
-            flush=True,
-        )
+    lanes = [int(x) for x in args.lanes.split(",")]
+    host = corpus.mixed_lanes(1, max(lanes), S)
+    full = [jax.device_put(a, dev) for a in host]
+    first = {}
+    for bl in (int(x) for x in args.block_lanes.split(",")):
+        triton_lpc.BLOCK_LANES = bl
+        jax.clear_caches()  # the kernel reads BLOCK_LANES when it is traced
+        recon = jax.jit(lpc.reconstruct_best)
+        for L in lanes:
+            d = [a[:L] for a in full]
+            t0 = time.perf_counter()
+            out = np.asarray(recon(*d))
+            compile_s = time.perf_counter() - t0
+            exact = bool(np.array_equal(out, first.setdefault(L, out)))
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                jax.block_until_ready(recon(*d))
+                times.append(time.perf_counter() - t0)
+            print(json.dumps({
+                "block_lanes": bl, "lanes": L, "steps": S,
+                "median_ms": float(np.median(times)) * 1e3,
+                "min_ms": min(times) * 1e3, "first_call_s": compile_s,
+                "equal_to_first_setting": exact,
+            }), flush=True)
 
 
 if __name__ == "__main__":
